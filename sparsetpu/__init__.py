@@ -1,4 +1,4 @@
-"""sparsetpu — TPU-native sparse linear algebra (JAX/XLA/Pallas).
+"""sparsetpu — sparse linear algebra in JAX (XLA and Pallas on a GPU).
 
 A from-scratch re-design of the capabilities of the Rust reference suite
 ``imlvts/sparse-linear-algebra-tests``: saturating-semiring CSR/COO, SpGEMM,

@@ -1,7 +1,7 @@
 """Memory-crossover study: sparse (grouped-CSR) vs dense storage for the
-attention operands, from the committed tipover sweeps.
+attention operands, from the tipover sweeps' CSVs.
 
-Reproduces the reference's memory analysis shape (bench_report.md:77-94:
+Reproduces the reference's memory analysis shape (its bench report:
 "CSR memory overhead at full density 1.47-1.54x dense; memory crossover
 ~68%") for THIS framework's format: per density step the tipover CSVs
 carry exact-nnz self-reports (mem_q/mem_k, tipover.py:_csr_mem_bytes —
@@ -11,7 +11,7 @@ one-chip budget, so the full-density ratio is computed analytically from
 the same formula with nnz = n_weights (exact: the formula is linear in
 nnz and every other term is shape-only).
 
-Usage: python -m sparsetpu.bench.memcross [--dir reports] [--out ...]
+Usage: python -m sparsetpu.bench.memcross [--dir bench_out] [--out ...]
 Emits one CSV row per config + a markdown summary block on stdout.
 """
 
@@ -79,9 +79,9 @@ def analyze(path: str, cfg: int) -> Tuple[List[str], str]:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dir", default="reports")
+    ap.add_argument("--dir", default="bench_out")
     ap.add_argument("--configs", type=int, nargs="*", default=[0, 1, 2, 3, 4])
-    ap.add_argument("--out", default="reports/memory_crossover.csv")
+    ap.add_argument("--out", default="bench_out/memory_crossover.csv")
     args = ap.parse_args(argv)
     rows = ["config,density,pair_nnz,sparse_bytes,dense_bytes,ratio"]
     summaries = []
@@ -93,6 +93,7 @@ def main(argv=None):
         rows += r
         summaries.append(s)
         print(s, flush=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         f.write("\n".join(rows) + "\n")
         f.write("# " + "\n# ".join(summaries) + "\n")

@@ -5,7 +5,7 @@ Mirrors the reference's real-graph study (bench_real_graphs
 src/graph_csr.rs:1430-1470, analyze_graph_structure :1472-1530, bench_diameter
 :1226-1319) at the same (n, edges) scales.  The reference loads
 ``gen-graphs/{cora,nell,ogbn_arxiv}.edges`` fetched over the network with
-torch_geometric/ogb (requirements.txt); this rig has zero egress, so when the
+torch_geometric/ogb (requirements.txt); this system runs without network access, so when the
 edge file is absent we substitute a preferential-attachment (power-law) graph
 at the SAME node/edge counts — the skew is the property the kernels care
 about (hub rows stress the categorization / bin-packing paths), and the
@@ -43,14 +43,12 @@ GRAPHS = [
 
 MAX_EXPANSION = 1 << 28  # ~268M products: sort-path / algo budget guard
 MAX_NNZ = 1 << 26        # stop the chain once the power is this dense
-# tiled dense-accumulator budget: 2 sweeps x nnz(A) x n_panels DMA issues
-# at ~340 ns each (kernels/spmm_pallas.py) — 600M issues ~ 3.5 min
-MAX_DMA_ISSUES = 600_000_000
-# sort-path routing bound.  Round 4 removed the ~2.5M-product compile
-# ceiling (SPGEMM_APPROACHES.md §4b; escb validated on hardware at 21M
-# products, reports/probe_escb_r4.csv); the bound now reflects memory —
-# the blocked-ESC expansion materializes ~10 stream-sized arrays, so past
-# ~32M products the dense-accumulator path is the safer route
+# tiled dense-accumulator budget: 2 sweeps x nnz(A) x n_panels row reads
+# (kernels/spmm_pallas.py); the bound awaits an H100 re-fit (ROADMAP C4)
+MAX_ROW_READS = 600_000_000
+# sort-path routing bound, a memory bound: the blocked-ESC expansion
+# materializes ~10 stream-sized arrays, so past ~32M products the
+# dense-accumulator path is the safer route
 SORT_MAX_FLOPS = 32_000_000
 DENSE_FIT_BYTES = 6e9
 
@@ -64,10 +62,9 @@ def load_or_synthesize(name: str, n: int, m: int) -> Tuple[str, tuple]:
     # process, which made nnz_a drift between runs of the "same" graph
     import zlib
 
-    # round 4 passed the DIRECTED edge target as m_per_node-per-UNDIRECTED
-    # attachment, silently doubling every substitute's density (cora_pl ran
-    # at nnz 21,506 vs the published 10,556); the generator now aims at
-    # the published directed count and the moments are asserted
+    # the generator aims at the published DIRECTED edge count (passing it
+    # as per-undirected attachment would double the density) and the
+    # moments are asserted
     m_per_node = max(1, round(m / n / 2))
     coo = datasets.power_law(n, m_per_node,
                              seed=zlib.crc32(name.encode()) % (1 << 31),
@@ -113,10 +110,10 @@ def bench_chain(label: str, a: SparseCSR, max_power: int,
     the first step (full-chain value agreement is the long test's job).
 
     Each step computes A x A^(k-1) — NOT A^(k-1) x A: the dense-accumulator
-    paths stream one (S,128) row slab per entry OF THE SPARSE OPERAND per
-    panel, so the sparse side must stay the original A (nnz fixed) while
-    the growing power rides densified.  Round 3 had the orientation
-    backwards, which priced nell A^3 at nnz(A^2)=13.6M DMAs per panel."""
+    paths read one dense row per entry OF THE SPARSE OPERAND per panel, so
+    the sparse side must stay the original A (nnz fixed) while the growing
+    power rides densified (the other orientation would price nell A^3 at
+    nnz(A^2)=13.6M row reads per panel)."""
     import jax
 
     from ..ops.slab import spgemm_slab
@@ -151,22 +148,21 @@ def bench_chain(label: str, a: SparseCSR, max_power: int,
             algo = "denseacc"
         elif flops * 90e-9 < t_tiled_est and flops <= (1 << 28):
             # large-n scattered: the column-chunked slab (MAGNUS role)
-            # costs ~90 ns/product where the tiled panel sweep pays the
-            # full n x m frame regardless of sparsity (measured: ogbn A^2
-            # 15.7 s colchunk vs 125.7 s tiled, bench_out/probe_colchunk.csv).
-            # Capped at 2^28 products: the per-row interleave holds every
+            # costs per product where the tiled panel sweep pays the full
+            # n x m frame regardless of sparsity (constants await an H100
+            # re-fit, ROADMAP C4).  Capped at 2^28 products: the per-row interleave holds every
             # chunk's output plus the final arrays (~3x output bytes)
             algo = "colchunk"
-        elif (panel_w and 2 * nnz_a * n_panels <= MAX_DMA_ISSUES
+        elif (panel_w and 2 * nnz_a * n_panels <= MAX_ROW_READS
               and min(flops, n * n) * 12 <= 5e9):
             # the second clause bounds the OUTPUT: col + two u64 limbs is
             # 12 B/entry and the output can reach min(flops, n^2) entries
-            # (nell A^4 at 531M products OOM'd on exactly this)
+            # (nell A^4 at 531M products ran out of memory on this)
             algo = "denseacc_tiled"
         else:
-            # no compilable path: sort kernels stall the remote compiler
-            # past the ceiling, and the tiled dense accumulator would blow
-            # the DMA-issue budget — an honest DNF row, not a stall
+            # no path within budget: the sort kernels are past their
+            # memory bound, and the tiled dense accumulator would blow the
+            # row-read budget — an honest DNF row, not a stall
             kind = ("DNF_sort_ceiling" if not panel_w else "DNF_budget")
             line = f"{label},{n},{nnz_a},{step},{kind},{flops},0,auto"
             rows.append(line)
@@ -287,7 +283,7 @@ def bench_band_hybrid(label: str, a: SparseCSR, iters: int = 2,
     """General graph through RCM + band/outlier hybrid, end-to-end (the
     README's general-graph band story, previously never demonstrated on a
     real-scale graph): RCM-reorder, split at the 90th-percentile |r-c|
-    band, run C = A x A through the MXU band kernel + column-gather +
+    band, run C = A x A through the dense band kernel + column-gather +
     ESC-outlier paths, verify value agreement against spgemm_auto, then
     time both.  CSV rows reuse the chain schema (step = hybrid@halfwidth /
     esc_comparator)."""

@@ -158,7 +158,7 @@ def try_plot_chain(csv_text: str, out_png: str,
     ref_par = {2: 4.9, 3: 5.8, 4: 9.0, 5: 17.1, 6: 24.4, 7: 40.5}
     ref_mag = {2: 8.3, 3: 14.4, 4: 23.5, 5: 28.3, 6: 80.4, 7: 129}
     fig, ax = plt.subplots(figsize=(7, 5))
-    ax.plot(steps, times, marker="o", label="sparsetpu (1 TPU v5e chip)")
+    ax.plot(steps, times, marker="o", label="sparsetpu")
     for name, ref in (("CSR seq (CPU)", ref_seq), ("CSR par (CPU)", ref_par),
                       ("MAGNUS par (CPU)", ref_mag)):
         xs = [s for s in steps if s in ref]

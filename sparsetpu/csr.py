@@ -1,6 +1,6 @@
 """Device-resident CSR sparse matrix as a JAX pytree.
 
-TPU-first re-design of the reference's ``CsrMatrix`` (src/graph_csr.rs:42-57)
+Accelerator re-design of the reference's ``CsrMatrix`` (src/graph_csr.rs:42-57)
 and shape-generalized ``Csr<I,V>`` (linalg/src/csr.rs:87-130): row_ptr /
 col_idx / values live as jnp arrays so every kernel is jit-able, and the
 value array is a tuple of uint32/float32 limb arrays per the semiring
@@ -66,7 +66,7 @@ class SparseCSR:
 
         scatter + cummax, not searchsorted: binary search with capacity-many
         consecutive queries costs log2(n) random-gather passes over the
-        whole slot stream (~100 M gathers/s measured on TPU); the
+        whole slot stream; the
         scatter-row-starts + running-max formulation is one n_rows-sized
         scatter plus one scan."""
         slots = jnp.arange(self.capacity, dtype=jnp.int32)
@@ -248,7 +248,7 @@ class SparseCSR:
         capacity: Optional[int] = None,
     ):
         """Pure-numpy COO->CSR merge (no jax — safe to run in a thread while
-        the main thread blocks on TPU attach).  Returns
+        the main thread starts the device).  Returns
         ``(row_ptr i32[n+1], col_idx i32[cap], limbs list[np arrays[cap]],
         nnz)``; see from_coo_host for the device version."""
         n_cols = n_rows if n_cols is None else n_cols

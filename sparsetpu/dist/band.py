@@ -1,4 +1,4 @@
-"""Sharded block-band MXU chain: block rows partitioned over the row mesh.
+"""Sharded block-band chain: block rows partitioned over the row mesh.
 
 The band matmul C[I, dp+da] += P[I, dp] @ A[(I+dp-Wbp) mod nb, da]
 (kernels/bandmm.py) only reads A's block rows — with A replicated, every

@@ -2,14 +2,13 @@
 meshes for the row-partitioned SpGEMM chain.
 
 BASELINE config 5 runs the A^7 chain on >= 2 hosts: each host owns a CSR
-row block, B panels ride the ring (dist/panels.py) over ICI within a host
-and DCN across hosts.  Everything in dist/ is mesh-generic — shard_map
-code is identical on 1 chip, 1 host, or a pod slice — so the only
-multi-host-specific pieces are (a) runtime initialization and (b) building
-a mesh over all hosts' devices with host-contiguous row blocks.  This
-module provides both; with one physical chip available the code path is
-exercised only up to the single-process boundary (see
-tests/test_multihost.py), the rest is gated on a real pod.
+row block, B panels ride the ring (dist/panels.py) over NVLink within a
+host and the network across hosts.  Everything in dist/ is mesh-generic —
+shard_map code is identical on 1 device, 1 host, or many hosts — so the
+only multi-host-specific pieces are (a) runtime initialization and (b)
+building a mesh over all hosts' devices with host-contiguous row blocks.
+tests/test_multihost.py runs two processes on virtual CPU devices; a run
+across real hosts is not measured yet.
 
 Reference mapping: the reference has no distributed mode at all (rayon
 threads are its only parallelism, SURVEY.md §2.6); this is the "new"
@@ -33,9 +32,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Bring up the multi-host runtime (idempotent).
 
-    On TPU pods with standard env (TPU_WORKER_HOSTNAMES etc.)
-    ``jax.distributed.initialize()`` auto-discovers everything; explicit
-    arguments cover DCN clusters launched by hand:
+    Nothing is auto-discovered: the coordinator address (any free
+    ``host:port``), the process count and this process's id come from the
+    arguments or the environment:
 
         SPARSETPU_COORD=host0:1234 SPARSETPU_NPROC=2 SPARSETPU_PID=0 \
             python bench.py ...
@@ -63,9 +62,9 @@ def initialize(coordinator_address: Optional[str] = None,
 def pod_mesh(devices: Optional[Sequence] = None) -> Mesh:
     """1-D mesh over every device of every host, ordered host-major so a
     row-sharded matrix keeps each host's row block contiguous — ring
-    neighbors are on-host (ICI) except one DCN hop per host boundary,
-    which is what makes the panel ring's per-step transfer ride the fast
-    links n_local_devices-1 times out of n_local_devices."""
+    neighbours are on-host (NVLink) except one network hop per host
+    boundary, so the panel ring's per-step transfer rides the fast links
+    n_local_devices-1 times out of n_local_devices."""
     devices = list(devices if devices is not None else jax.devices())
     devices.sort(key=lambda d: (d.process_index, getattr(d, "id", 0)))
     return Mesh(np.asarray(devices), (AXIS,))

@@ -2,8 +2,8 @@
 
 dist/shard.py replicates the right operand — the correct call when B is the
 small static base matrix of the A^k chain.  When B is itself large (e.g.
-squaring a grown product, C = P x P), replication wastes HBM and DCN
-bandwidth; the BASELINE design is instead: every device keeps its *panel*
+squaring a grown product, C = P x P), replication wastes device memory
+and interconnect bandwidth; the BASELINE design is instead: every device keeps its *panel*
 (its block of B rows), and panels rotate around the mesh ring with
 ``jax.lax.ppermute`` while each device expands the partial products whose
 inner index k falls inside the panel it currently holds.  After n_devices
@@ -12,16 +12,14 @@ sort/compress turns the accumulated streams into the output row block.
 
 The permute of step t+1 and the expansion against panel t are independent
 ops in one jit (both read the held panel; neither reads the other's
-output), so the compiler may schedule the ICI transfer concurrently with
-local compute — the overlap the reference gets from rayon work-stealing
-(src/graph_csr.rs:350-484) re-expressed as a collective pipeline.
-Overlap evidence is backend-specific: the XLA:CPU virtual mesh lowers
-ppermute to synchronous ``collective-permute`` (verified by HLO
-inspection — no start/done pairs exist on that backend), while XLA:TPU
-lowers it to async ``collective-permute-(start|done)`` pairs that its
-latency-hiding scheduler moves apart; with a single physical chip there
-is no multi-chip TPU HLO to inspect here, so the TPU-side overlap is by
-construction (dataflow independence), not yet by measurement.
+output), so the compiler may schedule the transfer concurrently with local
+compute — the overlap the reference gets from rayon work-stealing
+(src/graph_csr.rs:350-484) re-expressed as a collective pipeline.  On GPUs
+XLA hands ``ppermute`` to NCCL over NVLink; every card reaches every other
+at the same rate, so the ring needs no particular device order.  The
+XLA:CPU virtual mesh lowers ppermute to a synchronous
+``collective-permute``; whether XLA:GPU overlaps it with the expansion is
+not measured yet.
 
 All shapes static: per-step expansion capacity = max over (device, panel)
 pairs of the per-panel flop count, from the sharded symbolic pass.
@@ -142,8 +140,7 @@ def spgemm_panels(a: ShardedCSR, b: ShardedCSR, step_cap: int,
 
         # rotating panel state (start: own panel).  The ring is a
         # lax.fori_loop, not a Python unroll: one traced expansion instead
-        # of nd copies cut the XLA compile burden ~nd-fold (the round-1
-        # unrolled version took minutes to compile per capacity bucket).
+        # of nd copies cuts the XLA compile burden ~nd-fold.
         nlimbs = len(b_vals)
         shift = [(d, (d - 1) % nd) for d in range(nd)]
 

@@ -1,6 +1,6 @@
 """Row-partitioned CSR over a 1-D device mesh + sharded ESC SpGEMM.
 
-Design (TPU-native replacement for the reference's rayon two-pass row-parallel
+Design (multi-device replacement for the reference's rayon two-pass row-parallel
 SpGEMM, src/graph_csr.rs:350-484): the left operand's rows are split into
 ``n_devices`` contiguous blocks, one per mesh device; each shard stores a
 *local* CSR (local row_ptr, column indices still global).  The right operand

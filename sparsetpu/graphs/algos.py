@@ -61,7 +61,7 @@ def reachability_sum(a: SparseCSR, max_iters: int = 64,
     dense-accumulator's exact range on dense closures; S's values then
     count reachable path LENGTHS classes rather than path multiplicity.
 
-    Pattern mode routes through the dense int8 MXU engine
+    Pattern mode routes through the dense int8 matmul engine
     (graphs/patterns.py) when the n x n frame fits (``dense="auto"``;
     "never" forces the sparse route, "always" asserts the frame fits)."""
     if pattern and _route_dense(a.n_rows, dense):
@@ -102,7 +102,7 @@ def power_until_stable(a: SparseCSR, max_iters: int = 64,
                        dense: str = "auto") -> Tuple[SparseCSR, int]:
     """Repeated squaring until the sparsity pattern is a fixed point.
 
-    Pattern mode takes the dense int8 MXU route when the frame fits
+    Pattern mode takes the dense int8 matmul route when the frame fits
     (see :func:`reachability_sum`)."""
     if pattern and _route_dense(a.n_rows, dense):
         from . import patterns
@@ -153,7 +153,7 @@ def connected_components_closure(a: SparseCSR,
 def connected_components(a: SparseCSR, max_iters: int = 64) -> np.ndarray:
     """Device min-label propagation with pointer jumping (undirected view).
 
-    TPU-native replacement for the reference union-find (:605-651): converges
+    Vectorized replacement for the reference union-find (:605-651): converges
     in O(log n) rounds of gather + segment-min, entirely vectorized.
     """
     n = a.n_rows
@@ -233,7 +233,7 @@ def unpermute(a: SparseCSR, perm: np.ndarray) -> SparseCSR:
 def rcm(a: SparseCSR) -> Tuple[SparseCSR, np.ndarray]:
     """Reverse Cuthill–McKee reordering (host BFS, reference :663-718).
 
-    Returns (permuted matrix, perm) with perm[new] = old.  Used on TPU as a
+    Returns (permuted matrix, perm) with perm[new] = old.  Used as a
     bandwidth reducer ahead of dense-band SpGEMM strategies.
     """
     n = a.n_rows
@@ -300,9 +300,9 @@ def diameter(a: SparseCSR, max_iters: int = 64, dense: str = "auto") -> int:
     bound found; assumes a connected graph.
 
     Routes through the dense int8 pattern engine when the frame fits —
-    each squaring is one MXU matmul and each fixed-point loop one device
-    dispatch (the sparse route paid an ESC dispatch + host sync per
-    squaring: 132.8 s for the n=2708 cora substitute in round 4)."""
+    each squaring is one int8 matmul and each fixed-point loop one device
+    dispatch (the sparse route pays an ESC dispatch + host sync per
+    squaring)."""
     if _route_dense(a.n_rows, dense):
         from . import patterns
 

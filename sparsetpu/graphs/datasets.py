@@ -53,9 +53,9 @@ def power_law(n: int, m_per_node: int = 3, seed: int = 0,
     ``target_directed_edges``: aim the total stored (directed) entry count
     at this value by fractional per-node attachment — each undirected
     attachment stores two directed entries, so integer ``m_per_node``
-    alone quantizes the density to multiples of 2n (the round-4
-    substitutes silently ran at 2x the published edge counts this way;
-    see PUBLISHED_STATS / check_substitute)."""
+    alone quantizes the density to multiples of 2n (substitutes would run
+    at 2x the published edge counts; see PUBLISHED_STATS /
+    check_substitute)."""
     assert n > m_per_node >= 1
     rng = np.random.default_rng(seed)
     if target_directed_edges is not None:

@@ -2,7 +2,7 @@
 
 The reference's linalg Csr walks *compound rows* — flattened leading axes —
 so batched specs like ``bij,bjk->bik`` iterate the sparse (b, i) row
-natively (linalg/src/csr.rs:87-98, linalg/src/einsum.rs:209-232).  On TPU
+natively (linalg/src/csr.rs:87-98, linalg/src/einsum.rs:209-232).  Here
 the same idea is an *embedding*: a (g, n, m) batched sparse tensor is a
 block-diagonal SparseCSR of shape (g*n, g*m), where distinct batch entries
 can never interact, so one flat SpGEMM computes every batch's product.

@@ -1,11 +1,10 @@
-"""Block-band matrix format + MXU band SpGEMM.
+"""Block-band matrix format + dense band SpGEMM.
 
-TPU-first replacement for the reference's cache-blocked SpGEMM strategies
+Accelerator replacement for the reference's cache-blocked SpGEMM strategies
 (MAGNUS row categorization, src/graph_magnus.rs; AVX2 block kernels,
 src/chunked.rs:12-131): matrices whose nonzeros live in a (cyclic) band —
 Moore-lattice tori natively, arbitrary graphs after RCM — are stored as
-dense *block diagonals* and multiplied with batched 128-class matmuls on the
-MXU.  Entries outside the band are "outliers" and take the ESC sparse path;
+dense *block diagonals* and multiplied with batched dense block matmuls.  Entries outside the band are "outliers" and take the ESC sparse path;
 :mod:`sparsetpu.ops.hybrid` merges the two — that split is the per-entry
 categorization pass.
 
@@ -16,7 +15,7 @@ block-diagonal convolution:
 
     C[I, Dp + Da] += P[I, Dp] @ A[(I + Dp - Wbp) % nb, Da]
 
-i.e. Kbp * Kba batched (nb, B, B) matmuls — pure MXU work with static
+i.e. Kbp * Kba batched (nb, B, B) matmuls — pure dense matmul work with static
 shapes.  Exactness: values are integer counts carried in f32; products and
 sums are exact while results stay < 2^24 (guarded by the caller via
 value-bound checks; see ops/hybrid.py).
@@ -184,8 +183,8 @@ def _to_limbs(x: jnp.ndarray, limbs: int):
 def _band_matmul_data(p_data, a_data, wbp: int, wba: int, cyclic: bool,
                       p_limbs: int = 0, a_limbs: int = 0, row_offset=0):
     """Band block-diagonal convolution.  p_limbs/a_limbs == 0 -> exact f32
-    matmuls (HIGHEST precision); otherwise 8-bit bf16 limb decomposition at
-    native MXU rate with f32 recombination.
+    matmuls (HIGHEST precision); otherwise 8-bit bf16 limb decomposition
+    at the bf16 matmul rate, f32 accumulation and recombination.
 
     ``row_offset`` shifts the global block-row index of p_data's rows —
     the row-sharded path (dist/band.py) passes each shard's base block-row
@@ -257,7 +256,7 @@ def band_matmul(p: BandMatrix, a: BandMatrix, p_limbs: int = 0,
     """C = P x A for two block-band matrices (same block size & wrap mode).
 
     With ``p_limbs``/``a_limbs`` > 0 the inputs are decomposed into 8-bit
-    bf16 limb planes and multiplied at native MXU rate (exact while true
+    bf16 limb planes and multiplied at the bf16 matmul rate (exact while true
     result values stay < 2^24 — the caller guards via max_value())."""
     assert p.block == a.block and p.cyclic == a.cyclic and p.n == a.n
     c_data = _band_matmul_data(

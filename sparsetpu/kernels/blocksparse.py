@@ -1,37 +1,28 @@
-"""Block-sparse matrices and Pallas masked block-matmul kernels.
+"""Block-sparse matrices and the sampled dense-dense (SDD) score blocks.
 
-TPU re-design of the reference's Chunked/Blocked block-sparse tensors and
+Re-design of the reference's Chunked/Blocked block-sparse tensors and
 their AVX2 `C += A.B^T` microkernels (src/chunked.rs:12-131, :315-368;
-linalg/src/blocked.rs): blocks become MXU-sized tiles, the block map
-becomes a packed index list, and the hand-written SIMD kernel becomes a
-Pallas kernel whose grid enumerates only *present* blocks — absent blocks
+linalg/src/blocked.rs): blocks become dense tiles, the block map becomes a
+packed index list, and only *present* blocks are computed — absent blocks
 cost nothing, which is the entire point of the format.
 
-Kernels:
   - ``sdd_block_scores``: sampled dense-dense C[blk] = Q[qi] @ K[ki]^T for
-    a prefetched list of (qi, ki) block pairs — the block-sparse attention
-    primitive (only listed score blocks are computed).
+    a list of (qi, ki) block pairs — the block-sparse attention primitive.
+    The listed Q and K blocks are gathered and multiplied in one batched
+    matmul (cuBLAS on a GPU); the gathered blocks are small next to the
+    scores they produce.
   - ``BlockSparseMatrix``: packed block storage with to/from dense.
-
-The Pallas kernel runs compiled on TPU and in interpreter mode elsewhere
-(tests exercise it on CPU via interpret=True).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-
-def _interpret() -> bool:
-    return jax.default_backend() not in ("tpu",)
 
 
 @partial(
@@ -97,21 +88,7 @@ class BlockSparseMatrix:
         )
 
 
-def _sdd_kernel(qi_ref, ki_ref, q_ref, k_ref, out_ref):
-    """One present score block: out = Q_block @ K_block^T (MXU).
-
-    precision=HIGHEST keeps f32-faithful accumulation on the MXU (default
-    TPU f32 dot accumulates bf16 products — too loose for the reference's
-    1e-4 rel-err agreement discipline, src/main.rs:100-114)."""
-    out_ref[0] = jax.lax.dot_general(
-        q_ref[:],
-        k_ref[:],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-
+@partial(jax.jit, static_argnames=("block_m", "block_n"))
 def sdd_block_scores(
     q: jnp.ndarray,
     k: jnp.ndarray,
@@ -122,30 +99,17 @@ def sdd_block_scores(
 ) -> jnp.ndarray:
     """Compute C blocks C[t] = Q[qi[t]*bm : +bm] @ K[ki[t]*bn : +bn]^T.
 
-    q: f32[M, D], k: f32[N, D]; qi/ki: i32[T] block indices (prefetched
-    scalars drive the per-step DMA — absent blocks are never touched).
-    Returns f32[T, bm, bn] packed score blocks.
-    """
+    q: f32[M, D], k: f32[N, D]; qi/ki: i32[T] block indices.  Returns
+    f32[T, bm, bn] packed score blocks.  precision=HIGHEST keeps full f32
+    products (an f32 matmul may otherwise run in TF32 on a GPU, too loose
+    for the reference's 1e-4 rel-err agreement, src/main.rs:100-114)."""
     m, d = q.shape
     n, _ = k.shape
-    t = qi.shape[0]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(t,),
-        in_specs=[
-            pl.BlockSpec((block_m, d), lambda i, qi_, ki_: (qi_[i], 0)),
-            pl.BlockSpec((block_n, d), lambda i, qi_, ki_: (ki_[i], 0)),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, block_m, block_n), lambda i, qi_, ki_: (i, 0, 0)
-        ),
-    )
-    return pl.pallas_call(
-        _sdd_kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((t, block_m, block_n), jnp.float32),
-        interpret=_interpret(),
-    )(qi, ki, q, k)
+    qb = q.reshape(m // block_m, block_m, d)[qi]
+    kb = k.reshape(n // block_n, block_n, d)[ki]
+    return jnp.einsum("tmd,tnd->tmn", qb, kb,
+                      precision=jax.lax.Precision.HIGHEST,
+                      preferred_element_type=jnp.float32)
 
 
 def block_sparse_attention_scores(
@@ -153,11 +117,11 @@ def block_sparse_attention_scores(
     k4: np.ndarray,
     block: int = 128,
 ):
-    """Reference block-sparse attention (bhqd,bhkd->bhqk) on TPU tiles.
+    """Reference block-sparse attention (bhqd,bhkd->bhqk) on dense tiles.
 
     Flattens (b, s, h) -> rows, pads to the tile size, builds the
     block-diagonal group mask intersected with Q/K block occupancy, and
-    computes only those score blocks with the Pallas SDD kernel.
+    computes only those score blocks with :func:`sdd_block_scores`.
 
     Returns (packed_blocks, qi, ki, meta) — use
     :func:`scores_blocks_to_dense` to materialize for verification.

@@ -1,386 +1,105 @@
-"""Pallas dense-accumulator SpMM: C = A x P at HBM speed of light.
+"""Row-streaming dense-accumulator SpMM C = A x P: a Pallas kernel on the
+Triton route.
 
-The chain's hot step (ops/spmm.py) is C[i, :] += A[i, k] * P[k, :] — per
-A-entry, one P row is read and FMA'd into one C row.  The jnp formulation
-(gather + segment_sum) materializes the gathered rows in HBM, tripling
-traffic; XLA measured ~4% of HBM bandwidth on the 30^3 torus chain.  This
-kernel is the TPU analog of the reference's per-row dense-scratch Gustavson
-loop (src/graph_csr.rs:306-346).
+The chain's hot step is C[i, :] += A[i, k] * P[k, :] — per A entry, one P
+row is read and added into one C row.  A gather + segment_sum formulation
+writes and re-reads the gathered (nnz, m) intermediate; this kernel moves
+only the algorithm's minimum bytes (each referenced P row block read once,
+C written once).  It is the analog of the reference's per-row dense-scratch
+Gustavson loop (src/graph_csr.rs:306-346).
 
-Layout is the whole trick.  P is stored as (n, S, 128) *row planes*
-(S = padded_cols / 128) so that:
-  - a one-row DMA copies the full (S, 128) trailing block — legal under the
-    Mosaic (8, 128) tiling rule and fully packed in VMEM (a (1, n) buffer
-    would waste 7/8 sublanes);
-  - the per-entry FMA `out[r] += v * row` is a full-width (S, 128) VPU op
-    (~all 8 sublanes busy), and `r` indexes the *untiled* leading dim of the
-    (R, S, 128) output tile, where dynamic indexing is allowed.
+One program per (output row i, column block j): it walks row i's CSR
+entries with a dynamic loop bound, loads block j of each referenced P row,
+and accumulates in registers.  P's width must be a multiple of the block:
+callers keep P column-padded (:func:`pad_cols`), once per chain.
 
-The grid walks output-row tiles (R rows); A's entry lists ride per-tile SMEM
-blocks (cols drive the DMAs, so they must be scalar-readable); P rows stream
-HBM->VMEM through an NBUF-deep buffer ring so several DMAs are in flight —
-each P row is read exactly once per referencing entry and C is written
-exactly once, the algorithm's minimum HBM traffic.
-
-Exactness: integer counts carried in f32; products/sums exact while values
-stay < 2^24 (callers guard via max checks, as in ops/spmm.py).
+Exactness: integer semirings ride an f32 carrier; products and sums are
+exact while every value stays < 2^24 (callers check the maximum).
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-NBUF = 4  # P-row buffers in flight
+from . import interpret
 
-
-def _interpret() -> bool:
-    return jax.default_backend() not in ("tpu",)
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+BLOCK = 1024  # widest column block; narrower P uses the next power of two
+NUM_WARPS = 4
+NUM_STAGES = 2
 
 
-def tile_sparse_operand(a, rows_per_tile: int = 8,
-                        n_cols_p: Optional[int] = None,
-                        pad_rows: bool = False, nbuf: int = NBUF):
-    """Host-side prep of the static sparse operand A for the Pallas kernel.
-
-    Returns (cnt i32[T], cols i32[T,1,E], lrow i32[T,1,E], vals f32[T,1,E],
-    meta) with T = n_rows / rows_per_tile output-row tiles and E = max
-    entries in any tile; cnt is padded to a nonzero multiple of NBUF and
-    padded slots are zero no-op entries the branch-free pipeline executes.
-    The (T, 1, E) layout makes the per-tile SMEM block (1, 1, E) legal.
-
-    ``n_cols_p`` is the dense operand's column count (defaults to a.n_cols,
-    i.e. the square chain case where P's width is A's width); ``pad_rows``
-    rounds the output row count up to a multiple of rows_per_tile with
-    empty virtual rows (callers slice the padding off the result)."""
-    n = a.n_rows
-    if pad_rows:
-        n = _round_up(n, rows_per_tile)
-    assert n % rows_per_tile == 0, (n, rows_per_tile)
-    row_ptr, col_idx, vals_np = a.to_numpy()
-    if (getattr(a, "sr_name", "u64") != "f32" and len(vals_np)
-            and float(vals_np.max()) >= float(1 << 24)):
-        # integer semirings ride an f32 carrier: exact only below 2^24
-        # (the f32 semiring is plain float math — no range restriction)
-        raise ValueError("pallas spmm requires values < 2^24")
-    rows = np.repeat(np.arange(a.n_rows, dtype=np.int64), np.diff(row_ptr))
-    t_count = n // rows_per_tile
-    tile_of_entry = rows // rows_per_tile
-    counts = np.bincount(tile_of_entry, minlength=t_count)
-    # offsets pre-scaled by the plane count S: the DMA issue rate on the
-    # scalar core is the kernel's throughput limit, so the issue loop should
-    # do no arithmetic beyond the SMEM loads
-    s_planes = _round_up(
-        _round_up(n_cols_p or a.n_cols, 128) // 128, 8)
-    # per-tile counts padded to a nonzero multiple of nbuf: the kernel's
-    # pipeline is branch-free, so padded entries (col/lrow offset 0, val 0)
-    # really run — a DMA of P row 0 and a zero FMA
-    cnt_pad = np.maximum(-(-counts // nbuf) * nbuf, nbuf)
-    e_max = _round_up(max(int(cnt_pad.max(initial=nbuf)), nbuf), 8)
-    cols = np.zeros((t_count, 1, e_max), np.int32)
-    lrow = np.zeros((t_count, 1, e_max), np.int32)
-    vals = np.zeros((t_count, 1, e_max), np.float32)
-    starts = row_ptr[::rows_per_tile][:t_count]
-    for t in range(t_count):
-        s, c = int(starts[t]), int(counts[t])
-        cols[t, 0, :c] = col_idx[s:s + c] * s_planes
-        lrow[t, 0, :c] = (rows[s:s + c] - t * rows_per_tile) * s_planes
-        vals[t, 0, :c] = vals_np[s:s + c].astype(np.float32)
-    return (
-        jnp.asarray(cnt_pad, jnp.int32),
-        jnp.asarray(cols),
-        jnp.asarray(lrow),
-        jnp.asarray(vals),
-        # n_rows is the (possibly padded) output row count
-        dict(rows_per_tile=rows_per_tile, n_rows=n, s_planes=s_planes),
-    )
+def block_for(m: int) -> int:
+    """Column block for a P of width m: a power of two, at most BLOCK."""
+    return min(BLOCK, 1 << (max(int(m), 1) - 1).bit_length())
 
 
-def _spmm_kernel(s_planes, nbuf, cnt_ref, cols_ref, lrow_ref, vals_ref,
-                 p_hbm, out_ref, row_buf, sem):
-    """One output-row tile: stream referenced P row planes, FMA into it.
-
-    Both P and the output tile are flat (rows*S, 128): a row is an aligned
-    (S, 128) slab at offset row*S, and S is a multiple of 8, so dynamic row
-    offsets are provably sublane-aligned — the accumulate is a full-width
-    unmasked (S, 128) FMA.  (A dynamic index on a (R, S, 128) leading dim
-    lowers to a masked full-block update costing ~R times more VPU: measured
-    75ms vs 25ms per 30^3 chain step.)"""
-    i = pl.program_id(0)
-    # cnt is pre-padded to a nonzero multiple of NBUF (tile_sparse_operand);
-    # padded entries carry col_off = lrow_off = 0, val = 0 — a harmless DMA
-    # of row 0 and a zero FMA — so the hot loop has NO branches, NO rem:
-    # a branch-free software pipeline of NBUF-entry groups where group g's
-    # waits retire exactly the starts issued by group g-1.
-    groups = cnt_ref[i] // nbuf
-    out_ref[:] = jnp.zeros_like(out_ref)
-
-    def dma(slot, e):
-        src = pl.multiple_of(cols_ref[0, 0, e], 8)  # pre-scaled by S
-        return pltpu.make_async_copy(
-            p_hbm.at[pl.ds(src, s_planes), :],  # (S, 128) row slab
-            row_buf.at[slot],
-            sem.at[slot],
-        )
-
-    def fma(slot, e):
-        dst = pl.multiple_of(lrow_ref[0, 0, e], 8)  # pre-scaled by S
-        out_ref[pl.ds(dst, s_planes), :] += vals_ref[0, 0, e] * row_buf[slot]
-
-    # prologue: fill all nbuf slots
-    for s in range(nbuf):
-        dma(s, s).start()
-
-    def body(g, _):
-        base = g * nbuf
-        for s in range(nbuf):  # unrolled: static slots
-            dma(s, base + s).wait()
-            fma(s, base + s)
-            dma(s, base + nbuf + s).start()
-        return 0
-
-    jax.lax.fori_loop(0, groups - 1, body, 0)
-
-    # epilogue: drain the last group (no further starts)
-    last = (groups - 1) * nbuf
-    for s in range(nbuf):
-        dma(s, last + s).wait()
-        fma(s, last + s)
+def padded_width(m: int) -> int:
+    b = block_for(m)
+    return -(-m // b) * b
 
 
-@partial(jax.jit, static_argnames=("rows_per_tile", "nbuf"))
-def spmm_pallas(cnt, cols, lrow, vals, p, rows_per_tile: int = 8,
-                nbuf: int = NBUF):
-    """C = A x P with A pre-tiled (tile_sparse_operand) and P dense f32 in
-    row-plane layout (n, S, 128).  Returns C as (n, S, 128) — directly
-    usable as the next chain step's P."""
-    t_count, _, e_max = cols.shape
-    n_p, s_planes, lane = p.shape
-    assert lane == 128, p.shape
-    assert s_planes % 8 == 0, p.shape
-    n = t_count * rows_per_tile  # output rows (== n_p in the square chain)
-    p_flat = p.reshape(n_p * s_planes, lane)
-    entry_spec = pl.BlockSpec(
-        (1, 1, e_max), lambda i, *_: (i, 0, 0), memory_space=pltpu.SMEM
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,  # cnt (small; SMEM)
-        grid=(t_count,),
-        in_specs=[
-            entry_spec,  # cols
-            entry_spec,  # lrow
-            entry_spec,  # vals
-            pl.BlockSpec(memory_space=pl.ANY),  # P stays in HBM
-        ],
-        out_specs=pl.BlockSpec(
-            (rows_per_tile * s_planes, lane), lambda i, *_: (i, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((nbuf, s_planes, lane), jnp.float32),
-            pltpu.SemaphoreType.DMA((nbuf,)),
-        ],
-    )
-    out = pl.pallas_call(
-        partial(_spmm_kernel, s_planes, nbuf),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n * s_planes, lane), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * int(cols.size) * s_planes * lane,
-            bytes_accessed=(int(cols.size) + n) * s_planes * lane * 4,
-            transcendentals=0,
-        ),
-        interpret=_interpret(),
-    )(cnt, cols, lrow, vals, p_flat)
-    return out.reshape(n, s_planes, lane)
-
-
-# ---------------------------------------------------------------------------
-# MXU variant: group-dot accumulation
-# ---------------------------------------------------------------------------
-#
-# The VPU kernel above is issue-loop bound: the dma_share probe
-# (scripts/probe_spmm.py) measures ~300 ns/entry of scalar-loop + per-entry
-# (S, 128) FMA dispatch with the DMA starts themselves only ~40-120 ns.
-# This variant removes the per-entry VPU dispatch: G entries form a group;
-# their P rows land in one (G*S, 128) buffer; a host-precomputed (R, G)
-# tile matrix M (M[lrow_e, e] = val_e) turns the G accumulations into ONE
-# MXU contraction  out(R, S, 128) += M(R, G) @ B(G, S, 128)  per group.
-# Exactness: M holds A's values (small ints, bf16-exact); B < 2^24;
-# Precision.HIGHEST makes the f32 MXU passes exact for these ranges.
-
-G_MXU = 32  # entries per group (double-buffered: 2 x G x (S,128) in VMEM)
-
-
-def tile_sparse_operand_mxu(a, rows_per_tile: int = 24, g: int = G_MXU,
-                            n_cols_p: Optional[int] = None,
-                            pad_rows: bool = False):
-    """Host prep for the MXU kernel: per-tile DMA column stream (cnt padded
-    to a nonzero multiple of 2g) + the per-group (R, G) tile matrices."""
-    n = a.n_rows
-    if pad_rows:
-        n = _round_up(n, rows_per_tile)
-    assert n % rows_per_tile == 0, (n, rows_per_tile)
-    row_ptr, col_idx, vals_np = a.to_numpy()
-    if len(vals_np) and float(vals_np.max()) >= float(1 << 24):
-        raise ValueError("pallas spmm requires values < 2^24")
-    if len(vals_np) and float(vals_np.max()) >= 256.0:
-        raise ValueError("mxu spmm requires static-operand values < 2^8 "
-                         "(bf16-exact tile matrix)")
-    rows = np.repeat(np.arange(a.n_rows, dtype=np.int64), np.diff(row_ptr))
-    t_count = n // rows_per_tile
-    tile_of_entry = rows // rows_per_tile
-    counts = np.bincount(tile_of_entry, minlength=t_count)
-    s_planes = _round_up(
-        _round_up(n_cols_p or a.n_cols, 128) // 128, 8)
-    cnt = np.maximum(_round_up_arr(counts, 2 * g), 2 * g).astype(np.int32)
-    e_max = int(cnt.max())
-    ngmax = e_max // g
-    cols = np.zeros((t_count, 1, e_max), np.int32)
-    m = np.zeros((t_count, ngmax * rows_per_tile, g), np.float32)
-    starts = np.concatenate([[0], np.cumsum(counts)])
-    for t in range(t_count):
-        s0, c = int(starts[t]), int(counts[t])
-        cols[t, 0, :c] = col_idx[s0:s0 + c] * s_planes
-        lr = (rows[s0:s0 + c] - t * rows_per_tile).astype(np.int64)
-        e = np.arange(c)
-        m[t, (e // g) * rows_per_tile + lr, e % g] = \
-            vals_np[s0:s0 + c].astype(np.float32)
-    return (
-        jnp.asarray(cnt),
-        jnp.asarray(cols),
-        jnp.asarray(m),
-        dict(rows_per_tile=rows_per_tile, n_rows=n, s_planes=s_planes, g=g),
-    )
-
-
-def _round_up_arr(x, m: int):
-    return -(-x // m) * m
-
-
-def _spmm_mxu_kernel(s_planes, rpt, g, cnt_ref, cols_ref, m_ref, p_hbm,
-                     out_ref, row_buf, sem):
-    """One output-row tile, two group-slots in flight: while slot A's G row
-    slabs stream in, slot B's group contracts on the MXU."""
-    i = pl.program_id(0)
-    pairs = cnt_ref[i] // (2 * g)
-    out_ref[:] = jnp.zeros_like(out_ref)
-
-    def dma(slot, gi, e):
-        src = pl.multiple_of(cols_ref[0, 0, gi * g + e], 8)
-        return pltpu.make_async_copy(
-            p_hbm.at[pl.ds(src, s_planes), :],
-            row_buf.at[slot, pl.ds(e * s_planes, s_planes), :],
-            sem.at[slot, e],
-        )
-
-    def start_group(slot, gi):
-        for e in range(g):
-            dma(slot, gi, e).start()
-
-    def wait_group(slot, gi):
-        for e in range(g):
-            dma(slot, gi, e).wait()
-
-    def compute(slot, gi):
-        b = row_buf[slot].reshape(g, s_planes, 128)
-        mt = m_ref[0, pl.ds(pl.multiple_of(gi * rpt, 8), rpt), :]
-        acc = jax.lax.dot_general(
-            mt, b, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        out_ref[:] += acc.reshape(rpt * s_planes, 128)
-
-    start_group(0, 0)
-    start_group(1, 1)
-
-    def body(gp, _):
-        base = 2 * gp
-        wait_group(0, base)
-        compute(0, base)
-        start_group(0, base + 2)
-        wait_group(1, base + 1)
-        compute(1, base + 1)
-        start_group(1, base + 3)
-        return 0
-
-    jax.lax.fori_loop(0, pairs - 1, body, 0)
-    last = 2 * (pairs - 1)
-    wait_group(0, last)
-    compute(0, last)
-    wait_group(1, last + 1)
-    compute(1, last + 1)
-
-
-@partial(jax.jit, static_argnames=("rows_per_tile", "g"))
-def spmm_pallas_mxu(cnt, cols, m, p, rows_per_tile: int = 24,
-                    g: int = G_MXU):
-    """C = A x P via per-group MXU contraction (tile_sparse_operand_mxu
-    prep).  Same layout contract as spmm_pallas: P and C are (n, S, 128)."""
-    t_count, _, e_max = cols.shape
-    n_p, s_planes, lane = p.shape
-    assert lane == 128, p.shape
-    assert s_planes % 8 == 0, p.shape
-    assert e_max % (2 * g) == 0, (e_max, g)
-    n = t_count * rows_per_tile
-    p_flat = p.reshape(n_p * s_planes, lane)
-    entry_spec = pl.BlockSpec(
-        (1, 1, e_max), lambda i, *_: (i, 0, 0), memory_space=pltpu.SMEM
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,  # cnt
-        grid=(t_count,),
-        in_specs=[
-            entry_spec,  # cols
-            pl.BlockSpec(  # per-tile group matrices (VMEM)
-                (1, m.shape[1], g), lambda i, *_: (i, 0, 0)
-            ),
-            pl.BlockSpec(memory_space=pl.ANY),  # P stays in HBM
-        ],
-        out_specs=pl.BlockSpec(
-            (rows_per_tile * s_planes, lane), lambda i, *_: (i, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, g * s_planes, lane), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, g)),
-        ],
-    )
-    out = pl.pallas_call(
-        partial(_spmm_mxu_kernel, s_planes, rows_per_tile, g),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n * s_planes, lane), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * int(cols.size) * rows_per_tile * s_planes * lane,
-            bytes_accessed=(int(cols.size) + n) * s_planes * lane * 4,
-            transcendentals=0,
-        ),
-        interpret=_interpret(),
-    )(cnt, cols, m, p_flat)
-    return out.reshape(n, s_planes, lane)
-
-
-def to_row_planes(p, n_cols: Optional[int] = None) -> jnp.ndarray:
-    """Dense (n, m) f32 -> row-plane layout (n, S, 128), zero-padding the
-    columns to a multiple of 128."""
-    n, m = p.shape
-    target = _round_up(_round_up(n_cols or m, 128) // 128, 8) * 128
+def pad_cols(p: jnp.ndarray) -> jnp.ndarray:
+    """Dense (k, m) -> (k, padded_width(m)) f32 with zero columns."""
+    m = p.shape[1]
     p = jnp.asarray(p, jnp.float32)
-    if target != m:
-        p = jnp.pad(p, ((0, 0), (0, target - m)))
-    return p.reshape(n, target // 128, 128)
+    return jnp.pad(p, ((0, 0), (0, padded_width(m) - m)))
 
 
-def from_row_planes(c, n_cols: int) -> jnp.ndarray:
-    """Row-plane (n, S, 128) -> dense (n, n_cols)."""
-    n = c.shape[0]
-    return c.reshape(n, -1)[:, :n_cols]
+def csr_operand(a):
+    """Device (row_ptr i32, col_idx i32, vals f32) of the static sparse
+    operand A.  Integer semirings must hold values < 2^24 (the f32
+    carrier's exact range); the f32 semiring is plain float math."""
+    row_ptr, col_idx, vals = a.to_numpy()
+    if (a.sr_name != "f32" and len(vals)
+            and float(vals.max()) >= float(1 << 24)):
+        raise ValueError("dense-accumulator spmm requires values < 2^24")
+    # an empty A still gets one (never read) entry: the kernel's operands
+    # may not be zero-sized
+    pad = int(len(col_idx) == 0)
+    return (jnp.asarray(row_ptr, jnp.int32),
+            jnp.asarray(np.pad(np.asarray(col_idx, np.int32), (0, pad))),
+            jnp.asarray(np.pad(np.asarray(vals).astype(np.float32), (0, pad))))
+
+
+def _kernel(rp_ref, col_ref, val_ref, p_ref, o_ref, *, block: int):
+    i = pl.program_id(0)
+    cols = pl.ds(pl.multiple_of(pl.program_id(1) * block, block), block)
+
+    def body(e, acc):
+        return acc + val_ref[e] * p_ref[col_ref[e], cols]
+
+    acc = jax.lax.fori_loop(rp_ref[i], rp_ref[i + 1], body,
+                            jnp.zeros((block,), jnp.float32))
+    o_ref[i, cols] = acc
+
+
+@jax.jit
+def spmm_pallas(row_ptr, col_idx, vals, p):
+    """C = A x P with A from :func:`csr_operand` and P f32 (k, m), m a
+    multiple of block_for(m).  Returns C f32 (n, m), directly usable as
+    the next chain step's P."""
+    n = row_ptr.shape[0] - 1
+    m = p.shape[1]
+    block = block_for(m)
+    if m % block:
+        raise ValueError(f"P width {m} is not a multiple of {block}; "
+                         "pad it with pad_cols")
+    any_spec = pl.BlockSpec(memory_space=pl.ANY)
+    return pl.pallas_call(
+        partial(_kernel, block=block),
+        grid=(n, m // block),
+        in_specs=[any_spec] * 4,
+        out_specs=any_spec,
+        out_shape=jax.ShapeDtypeStruct((n, m), jnp.float32),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
+        interpret=interpret(),
+        backend="triton",
+        name="spmm_rows",
+    )(row_ptr, col_idx, vals, p)

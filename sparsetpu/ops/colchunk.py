@@ -2,10 +2,10 @@
 expansions past the single-program slab budget.
 
 The reference's winning large-scale kernel (magnus crate, ICS'25
-arXiv:2501.07056, called from /root/reference/src/graph_magnus.rs:225-242)
+arXiv:2501.07056, called from src/graph_magnus.rs:225-242)
 reorders partial products into cache-sized COLUMN CHUNKS before
 accumulating.  This module is that algorithm with the accumulator flipped
-to the sort/merge form the TPU VPU likes (ops/slab.py):
+to the batched sort/merge form (ops/slab.py):
 
   1. *plan*: per-output-column product counts (one scatter-add over B's
      entries weighted by A's column counts) -> host prefix sum -> K
@@ -13,7 +13,7 @@ to the sort/merge form the TPU VPU likes (ops/slab.py):
      chunk's slab expansion fits a device budget (slot_budget).  Balanced
      ranges keep every chunk's static shapes identical, so ONE compiled
      slab program serves all K chunks (per-chunk static shapes would pay
-     a ~100 s remote compile EACH at these sizes).
+     a compile EACH).
   2. *reorder*: one device sort of B's entries by (chunk, row, col) +
      a (K, n+1) per-chunk row_ptr table — B restricted to a column range
      is then a contiguous slice, dynamic-sliced into a fixed-capacity
@@ -164,7 +164,7 @@ def spgemm_colchunk(a: SparseCSR, b: SparseCSR,
     """C = A x B with the partial-product space cut into column chunks.
 
     Each chunk runs the slab ESC numeric program with UNIFORM static
-    shapes (one remote compile for all chunks); outputs concatenate
+    shapes (one compile for all chunks); outputs concatenate
     per-row.  Poison discipline: a poisoned input, a poisoned chunk, or a
     chunk with rows too wide for the wide program propagates nnz = -1 /
     raises, never silently truncates."""

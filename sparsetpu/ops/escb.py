@@ -1,10 +1,9 @@
 """Blocked ESC SpGEMM: row-packed batched-sort formulation, compile-bounded.
 
-The monolithic ESC kernel (ops/spgemm.py) stopped *compiling* beyond ~2M
-products and its 1-D ``lax.sort`` runtime cliffs at 2^21 elements
-(measured: scripts/probe_sort.py -> reports/probe_sort.csv — 1-D sort
-66.7 ms vs batched 7.4 ms at 2M; associative_scan compile 398 s at 2M).
-This module keeps the ESC algorithm (expand all partial products, sort,
+The monolithic ESC kernel (ops/spgemm.py) sorts one 1-D stream of every
+partial product, whose compile time and runtime grow super-linearly with
+the stream on the machine this system was first written for.  This module
+keeps the ESC algorithm (expand all partial products, sort,
 merge duplicates) but restructures every super-linear-compile op into a
 compile-bounded batched form:
 
@@ -44,7 +43,7 @@ from . import segments
 from .segments import INT32_SENTINEL
 
 # default lane width: compile cost of the batched sort / lane scans is
-# bounded by L; 2^15 keeps per-block VMEM pressure low while amortizing
+# bounded by L; 2^15 keeps per-block working sets small while amortizing
 # per-block overheads
 DEFAULT_L = 1 << 15
 MAX_L = 1 << 20
@@ -187,8 +186,8 @@ def _numeric(a: SparseCSR, b: SparseCSR, pack2row: jnp.ndarray,
     row_head = rowf.reshape(nb, L) != prev_row
     e_at_head = jnp.where(row_head, excl.reshape(nb, L), -1)
     # native cummax, not associative_scan: the latter composed with the
-    # surrounding reshapes is the measured TPU-backend compile stall
-    # (reports/probe_compile_r4*.csv)
+    # surrounding reshapes stalled the compiler of the machine this system
+    # was first written for
     e_head = jax.lax.cummax(e_at_head, axis=1)
     rank = excl - e_head.reshape(npad)
 

@@ -1,14 +1,15 @@
-"""Categorized SpGEMM: dense block-band MXU path + ESC outlier path.
+"""Categorized SpGEMM: dense block-band path + ESC outlier path.
 
-The TPU-native analog of MAGNUS row categorization (reference
+The accelerator analog of MAGNUS row categorization (reference
 src/graph_magnus.rs + arXiv:2501.07056): instead of categorizing rows by
 accumulator locality, entries are categorized by *band membership* —
-in-band entries take the dense block-band MXU kernel (kernels/bandmm.py),
+in-band entries take the dense block-band kernel (kernels/bandmm.py),
 out-of-band "outlier" entries take the sort-based ESC kernel, and the
 linear decomposition  (Pb + Po) x A = Pb@A + Po@A  makes the merge exact.
 
 For the Moore-torus chain (the headline benchmark) the matrix is perfectly
-cyclic-banded, so the outlier set is empty and every step is pure MXU work.
+cyclic-banded, so the outlier set is empty and every step is dense block
+matmuls.
 General graphs get banded via RCM first (graphs/algos.rcm); entries RCM
 cannot compress into the band flow through ESC.
 
@@ -125,7 +126,7 @@ def _band_times_sparse(p: BandMatrix, a_out: SparseCSR) -> SparseCSR:
 
 def hybrid_matmul(p: HybridMatrix, a: HybridMatrix,
                   a_csr: Optional[SparseCSR] = None) -> HybridMatrix:
-    """C = (Pb + Po) x A = Pb@Ab [MXU band] + Pb@Ao [column gather]
+    """C = (Pb + Po) x A = Pb@Ab [dense band] + Pb@Ao [column gather]
     + Po@A [ESC].  ``a_csr`` is the full right operand in CSR form (needed
     only when P has outliers; the chain keeps the static base matrix's CSR
     around)."""
@@ -192,12 +193,12 @@ def choose_strategy(a: SparseCSR, steps: int = 1) -> str:
     """Pick the SpGEMM kernel category for C = A^(steps+1) chains.
 
     The role of the reference's MagnusConfig::default() heuristics
-    (src/graph_magnus.rs:225-242) on TPU: inspect the matrix and route to
+    (src/graph_magnus.rs:225-242): inspect the matrix and route to
 
-      - "band":  (cyclic-)banded support and small values — block-band MXU
+      - "band":  (cyclic-)banded support and small values — block-band dense
                  kernel, zero sparse overhead (Moore tori; RCM'd meshes);
       - "dense-acc": product densifies (band covers much of the matrix
-                 within `steps` squarings/products) — Pallas row-streaming
+                 within `steps` squarings/products) — the row-streaming
                  dense-accumulator kernel (kernels/spmm_pallas.py);
       - "esc":   everything else (general sparsity, exact u64 needed at
                  full range) — the sort-based ESC kernel.
@@ -211,18 +212,19 @@ def choose_strategy(a: SparseCSR, steps: int = 1) -> str:
     vmax = _csr_max_value(a)
     if vmax >= F32_EXACT_LIMIT:
         return "esc"
-    # dense-acc: the Pallas row-streaming kernel iterates the STATIC
-    # operand's entries and keeps the product dense — measured fastest
-    # whenever the dense product fits HBM and the expected final row
-    # degree (deg^(steps+1)) reaches ~1% of n (the 30^3 headline chain:
-    # 3^7 = 2187 of 27000 = 8%).  Bandedness is irrelevant to this path.
+    # dense-acc: the row-streaming kernel iterates the STATIC operand's
+    # entries and keeps the product dense — chosen whenever the dense
+    # product fits the memory budget and the expected final row degree
+    # (deg^(steps+1)) reaches ~1% of n (the 30^3 headline chain: 3^7 =
+    # 2187 of 27000 = 8%).  Bandedness is irrelevant to this path.  The 4 GB
+    # and 1% thresholds await a re-fit from H100 ledger lines (ROADMAP B4).
     deg = max(nnz / max(n, 1), 1.0)
     exp_row_deg = min(deg ** (steps + 1), float(n))
     padded_cols = -(-n // 1024) * 1024
     dense_bytes = n * padded_cols * 4
     if dense_bytes <= 4e9 and exp_row_deg >= 0.01 * n:
         return "dense-acc"
-    # banded and staying banded: MXU band kernel wins when the band is
+    # banded and staying banded: the dense band kernel wins when the band is
     # reasonably occupied (dense blocks not mostly zeros)
     bw = cyclic_bandwidth(a)
     band_frac = 2.0 * bw / max(n, 1)

@@ -1,9 +1,9 @@
 """Sorted-segment primitives: the vector backbone of every sparse kernel.
 
 The reference's kernels accumulate into per-row dense/BTreeMap scratch
-(src/graph_csr.rs:306-346); on TPU we instead keep everything as flat sorted
-streams and use sort + segmented scans, which map onto the VPU without any
-scalar scatter loops.
+(src/graph_csr.rs:306-346); here everything stays flat sorted streams and
+uses sort + segmented scans, which vectorize without any scalar scatter
+loops.
 
 Core primitives:
   - ``sort_by_keys``:      multi-operand lexicographic sort (lax.sort).
@@ -35,22 +35,14 @@ _U32_MAX = np.uint32(0xFFFFFFFF)
 
 
 # lane width for two-level scans: a 1-D associative_scan's XLA compile time
-# grows superlinearly with array length (measured on the TPU compiler:
-# 14.8 s at 2^18, 141.8 s at 2^20, unusable by ~2^21 — scripts/probe_sort.py,
-# reports/probe_sort.csv) because the log2(n) slice/update tree is laid out
-# per level.
-#
-# ROUND-4 ROOT CAUSE (scripts/r4_probe_compile*.sh -> reports/
-# probe_compile_r4*.csv): the two-level blocked_scan did NOT fix this — it
-# was itself the framework-wide "~2.5M-product sort-path compile ceiling".
-# Bisection shows a bare lane-axis associative_scan on (nb, L) compiles in
-# seconds at 5.2M elements, but composing it with the surrounding
-# pad/reshape/flatten/slice (with or without the carry) stalls the TPU
-# backend >240 s; the native cumulative HLO ops (lax.cumsum / lax.cummax)
-# compile in seconds and run flat up to the 108M elements probed.  All hot
-# primitives therefore use native cumulative ops now; blocked_scan remains
+# grows superlinearly with array length because the log2(n) slice/update
+# tree is laid out per level, and composing even the two-level form with
+# the surrounding pad/reshape/flatten/slice stalled the compiler of the
+# machine this system was first written for, while the native cumulative
+# HLO ops (lax.cumsum / lax.cummax) compile quickly at any length.  All hot
+# primitives therefore use native cumulative ops; blocked_scan remains
 # only for the f32 segmented scan (order-sensitive float fold, no native
-# reformulation) and is documented as compile-bounded to ~4M elements.
+# reformulation) and is kept to ~4M elements.
 BLOCKED_SCAN_L = 1 << 15
 
 
@@ -92,13 +84,7 @@ def blocked_scan(combine, elems, identity, L: int = BLOCKED_SCAN_L):
 def cumsum_blocked(x: jnp.ndarray) -> jnp.ndarray:
     """Inclusive 1-D cumsum via the native ``lax.cumsum`` HLO op.
 
-    History: this was a two-level ``blocked_scan`` because 1-D
-    ``associative_scan`` compile time grows superlinearly (141.8 s at
-    2^20).  Round 4's bisection (scripts/r4_probe_compile*.sh ->
-    reports/probe_compile_r4.csv) found blocked_scan ITSELF stalls the TPU
-    backend past ~4M elements — it was the framework-wide ~2.5M-product
-    "sort-path compile ceiling" — while the native cumulative-op HLO
-    compiles in seconds and runs flat up to the 108M elements probed.
+    Native rather than an associative scan: see the BLOCKED_SCAN_L note.
     """
     return jax.lax.cumsum(x)
 
@@ -116,11 +102,10 @@ def repeat_index(starts: jnp.ndarray, values: jnp.ndarray, length: int,
 
     The classic "repeat each value count times" primitive.  A
     ``searchsorted(cum, arange(length))`` formulation costs log2(length)
-    *random-gather passes over the whole stream* — measured ~100 M
-    gathers/s on TPU, which made the binary search the hidden bottleneck of
+    *random-gather passes over the whole stream*, the hidden bottleneck of
     the ESC expansion.  This version is one small scatter (len(starts)) +
-    one native cummax (~1.4 G elem/s measured): out-of-range starts are
-    dropped, positions before the first start carry ``fill``.
+    one native cummax: out-of-range starts are dropped, positions before
+    the first start carry ``fill``.
     """
     marks = jnp.full((length,), fill, values.dtype)
     marks = marks.at[starts].max(values, mode="drop")
@@ -186,9 +171,8 @@ def _segment_running_native(sr: Semiring, heads: jnp.ndarray, values: Value,
                             axis: int):
     """Segmented saturating running totals from NATIVE cumulative ops only.
 
-    The associative-scan formulation stalls the TPU backend past ~4M
-    elements whenever reshapes surround the scan (see BLOCKED_SCAN_L note);
-    native lax.cumsum/cummax compile in seconds at 108M.  Saturating
+    Native ops rather than an associative scan (see the BLOCKED_SCAN_L
+    note).  Saturating
     unsigned fold == min(true sum, MAX), so exact true sums suffice:
     split each uint32 limb into 16-bit planes, take MODULAR uint32 plane
     cumsums (wrap cancels in the start-base subtraction while each
@@ -265,11 +249,10 @@ def compact(keep: jnp.ndarray, arrays: Sequence[jnp.ndarray], fill_values, out_s
     (compacted_arrays, count) where count = total number of kept entries
     (may exceed out_size if capacity was too small — caller checks).
 
-    One index scatter + K gathers, not K full-stream scatters: scatters run
-    ~100 M elem/s on TPU, so scattering every payload array directly would
-    cost K passes at the stream size; scattering only the source *indices*
-    once and gathering the payloads through them does the same work with
-    the cheap pass count.
+    One index scatter + K gathers, not K full-stream scatters: scattering
+    every payload array directly would cost K scatter passes at the stream
+    size; scattering only the source *indices* once and gathering the
+    payloads through them does the same work with one.
     """
     n = keep.shape[0]
     pos = cumsum_blocked(keep.astype(jnp.int32)) - 1
@@ -308,8 +291,8 @@ def reduce_sorted_coo(
     cumsum, so diffs across them stay exact.  Versus running the full
     segmented scan and compacting its totals, this trades the scan's
     full-stream base gathers for out_size-sized ones (out <= stream
-    always); random gathers at ~10 ns/element are the stream's budget
-    currency (SPGEMM_APPROACHES.md §1).  f32 keeps the scan fold.
+    always); random-gather passes are the stream's budget currency
+    (SPGEMM_APPROACHES.md §1).  f32 keeps the scan fold.
     """
     heads = segment_heads(keys)
     n = keys[0].shape[0]

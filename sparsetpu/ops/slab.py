@@ -1,10 +1,9 @@
 """Slab ESC SpGEMM: chunked-B row-gather expansion + bin-packed batched
-sort-merge + Pallas prefix-coalesce assembly.
+sort-merge + prefix-coalesce assembly.
 
-The round-4 blocked ESC (ops/escb.py) is bounded by per-PRODUCT random
-gathers: expansion resolves every padded slot through 4-5 full-stream
-gathers and assembly adds an index scatter + output-sized gathers — at
-~10-14 ns/element that is the measured ~12 Mproducts/s ceiling
+The blocked ESC (ops/escb.py) is bounded by per-PRODUCT random gathers:
+expansion resolves every padded slot through 4-5 full-stream gathers and
+assembly adds an index scatter + output-sized gathers
 (SPGEMM_APPROACHES.md §4c).  This module keeps the ESC algorithm but
 restructures every per-product pass into per-ENTRY or per-CHUNK work:
 
@@ -13,8 +12,7 @@ restructures every per-product pass into per-ENTRY or per-CHUNK work:
      B row is a run of C-wide chunks at a static stride.
   2. *expand* per SUB-ENTRY (one (A-entry, B-chunk) pair): one
      repeat_index over packed slots + three ROW gathers — jnp.take of
-     (T, k) tables measures ~3.4 ns per INDEX on this chip
-     (bench_out/probe_r5.csv rowgather), ~3x cheaper than 1-D gathers
+     (T, k) tables costs one index per row, far fewer than 1-D gathers,
      and it moves C+ elements per index.  The gathered chunk lands
      directly in its (nb, L) slab position: no per-product addressing
      exists anywhere.
@@ -35,8 +33,8 @@ whose chunk count exceeds a block run in a second wide program and merge
 via escb.merge_disjoint_rows; this is the MAGNUS role — locality-restoring
 chunked accumulation with per-category programs (the reference's winning
 large-scale kernel, src/graph_magnus.rs:225-242 / arXiv:2501.07056) —
-with the accumulator data structure flipped to the sort/merge form the
-VPU likes (SPGEMM_APPROACHES.md §3).
+with the accumulator data structure flipped to the batched sort/merge
+form (SPGEMM_APPROACHES.md §3).
 """
 
 from __future__ import annotations
@@ -256,11 +254,8 @@ def _numeric(a: SparseCSR, b: SparseCSR, sel_rows: jnp.ndarray,
     # sit at block FRONTS after the pack sort, so output position t maps
     # to source (block, t - offs[block]) — block-of-t comes from one tiny
     # scatter + cummax (repeat_index), and ALL payload arrays ride ONE
-    # packed row-gather (~3.4 ns/index measured) instead of K 1-D gathers
-    # or the stream-sized index scatter (segments.compact's cost).
-    # (A Pallas overlapping-DMA version measured ~us-scale in interpret
-    # mode but fails Mosaic compile on 1-D dynamic HBM offsets —
-    # kernels/coalesce.py stays as the recorded experiment.)
+    # packed row-gather instead of K 1-D gathers or the stream-sized index
+    # scatter (segments.compact's cost).
     t = jnp.arange(out_cap, dtype=jnp.int32)
     bid = jnp.clip(
         segments.repeat_index(offs[:-1], jnp.arange(nb, dtype=jnp.int32),
@@ -268,21 +263,20 @@ def _numeric(a: SparseCSR, b: SparseCSR, sel_rows: jnp.ndarray,
         0, nb - 1)
     src = jnp.clip(bid * l + (t - offs[bid]), 0, nb * l - 1)
     if out_cap <= (1 << 21):
-        # packed row-gather: ONE gather serves every payload (~3.4
-        # ns/index measured) — but a 2-D s32 array tiles T(8,128), so the
-        # k-wide minor dim pads to 128 lanes (32x memory).  Affordable
-        # only below ~1 GB of padded temp (BOTH the stacked source and
-        # the gather output pad; at ogbn scale the pair was 33 GB and
-        # OOM'd the chip)
+        # packed row-gather: ONE gather serves every payload — but a
+        # device that tiles a 2-D s32 array to 128 lanes pads the k-wide
+        # minor dim 32x.  Bounded to ~1 GB of padded temp (BOTH the
+        # stacked source and the gather output pad; at ogbn scale the
+        # pair was 33 GB); the bound awaits an H100 re-fit (ROADMAP C4)
         packed = jnp.stack(
             [pr_s.reshape(nb * l), pc_s.reshape(nb * l)]
             + [b32(x).reshape(nb * l) for x in ptotals], axis=1)
         g_out = jnp.take(packed, src, axis=0, mode="clip")
         cols_out = [g_out[:, j] for j in range(2 + len(ptotals))]
     else:
-        # large out_cap: per-payload 1-D gathers keep every array in the
-        # unpadded T(1024) layout (k gathers at ~10 ns/element beat one
-        # padded gather that cannot be allocated)
+        # large out_cap: per-payload 1-D gathers keep every array
+        # unpadded (k gathers beat one padded gather that cannot be
+        # allocated)
         cols_out = [jnp.take(x.reshape(nb * l), src, mode="clip")
                     for x in (pr_s, pc_s)]
         cols_out += [jnp.take(b32(x).reshape(nb * l), src, mode="clip")

@@ -1,85 +1,19 @@
-"""Sparse x dense SpMM and the dense-accumulator chain kernel.
+"""Sparse x dense SpMM over a SparseCSR operand (the einsum planner's
+lowering target) and dense -> CSR extraction.
 
-The third kernel category (with ESC and block-band): when the product of a
-chain step is *dense-ish* — the A^k torus chain's band covers most of the
-matrix by A^6 — the fastest TPU formulation keeps the product as a dense
-f32 matrix and computes C = A x P row-wise:
-
-    for each A entry (i, k, v):  C[i, :] += v * P[k, :]
-
-i.e. a gather of P rows by A's column indices, scaled, segment-summed by
-A's (sorted) row indices — no scatter, no sort, HBM-bandwidth bound.  This
-is the dense-accumulator Gustavson category (the reference's per-row dense
-scratch, src/graph_csr.rs:306-346, vectorized over the entire matrix), and
-the role MAGNUS's dense-accumulation row category plays (arXiv:2501.07056).
-
-Exactness: integer counts carried in f32; gathers/multiplies/sums are exact
-while true values stay < 2^24 (guarded by the caller via max checks).
+The chain's dense-accumulator step C = A x P, where P is the whole dense
+product, is the row-streaming kernel in kernels/spmm_pallas.py.
 """
 
 from __future__ import annotations
 
-from functools import partial
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..csr import SparseCSR
-
-
-def prepare_spmm_operand(a: SparseCSR, n_chunks: int = 8):
-    """Host-side preprocessing of the static sparse operand: split entries
-    into row-contiguous chunks of fixed padded size so the device loop is
-    fully static.  Returns (cols, vals, local_rows, rows_per_chunk)."""
-    n = a.n_rows
-    row_ptr, col_idx, vals_np = a.to_numpy()
-    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(row_ptr))
-    rpc = -(-n // n_chunks)
-    counts = [
-        int(row_ptr[min((c + 1) * rpc, n)] - row_ptr[min(c * rpc, n)])
-        for c in range(n_chunks)
-    ]
-    cap = max(max(counts), 1)
-    cols = np.zeros((n_chunks, cap), np.int32)
-    vals = np.zeros((n_chunks, cap), np.float32)
-    lrow = np.zeros((n_chunks, cap), np.int32)
-    for c in range(n_chunks):
-        r0 = min(c * rpc, n)
-        base = int(row_ptr[r0])
-        cnt = counts[c]
-        cols[c, :cnt] = col_idx[base:base + cnt]
-        vals[c, :cnt] = vals_np[base:base + cnt].astype(np.float32)
-        lrow[c, :cnt] = (rows[base:base + cnt] - r0).astype(np.int32)
-    vmax = float(vals_np.max()) if len(vals_np) else 0.0
-    if vmax >= float(1 << 24):
-        raise ValueError("spmm dense path requires values < 2^24")
-    return jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(lrow), rpc
-
-
-@partial(jax.jit, static_argnames=("rows_per_chunk",))
-def spmm_dense(cols, vals, local_rows, p, rows_per_chunk: int):
-    """C = A x P with A in chunked form (prepare_spmm_operand) and P dense
-    f32 (n x n).  Returns dense C (n x n) f32."""
-    n_chunks = cols.shape[0]
-    n = p.shape[0]
-
-    def body(ci, c):
-        ck = jax.lax.dynamic_index_in_dim(cols, ci, keepdims=False)
-        vk = jax.lax.dynamic_index_in_dim(vals, ci, keepdims=False)
-        rk = jax.lax.dynamic_index_in_dim(local_rows, ci, keepdims=False)
-        g = p[ck, :] * vk[:, None]
-        rowsum = jax.ops.segment_sum(
-            g, rk, num_segments=rows_per_chunk, indices_are_sorted=True
-        )
-        return jax.lax.dynamic_update_slice(
-            c, rowsum, (ci * rows_per_chunk, 0)
-        )
-
-    c0 = jnp.zeros((n_chunks * rows_per_chunk, n), jnp.float32)
-    c = jax.lax.fori_loop(0, n_chunks, body, c0)
-    return c[:n]
 
 
 @jax.jit

@@ -1,18 +1,19 @@
-"""Semiring value abstraction for TPU-native sparse linear algebra.
+"""Semiring value abstraction for sparse linear algebra on an accelerator.
 
 The reference framework parameterizes every kernel over an (Index, Value)
 semiring pair with saturating integer arithmetic (reference:
-linalg/src/csr.rs:38-85, src/graph_csr.rs:29-37).  TPUs have no native 64-bit
-integer datapath, so we represent semiring values as a *tuple of uint32 limb
-arrays* and implement exact saturating arithmetic with 32-bit vector ops:
+linalg/src/csr.rs:38-85, src/graph_csr.rs:29-37).  JAX runs without 64-bit
+integers unless x64 mode is enabled, and accelerators' vector datapaths are
+32-bit, so semiring values are a *tuple of uint32 limb arrays* with exact
+saturating arithmetic in 32-bit vector ops:
 
   - ``U32Sat``: one uint32 limb, saturating add/mul (``Saturating<u32>``).
   - ``U64Sat``: two uint32 limbs (lo, hi), saturating add/mul over the full
     128-bit product (``Saturating<u64>``).
   - ``F32``:    one float32 limb, ordinary IEEE add/mul.
 
-All operations are elementwise jnp ops (VPU-friendly) and work identically on
-CPU and TPU without enabling jax x64 mode.  Values travel through sorts,
+All operations are elementwise jnp ops and work identically on the CPU and
+a GPU without enabling jax x64 mode.  Values travel through sorts,
 scans and gathers as flat tuples of same-shaped arrays.
 """
 

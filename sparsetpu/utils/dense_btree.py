@@ -3,10 +3,10 @@
 Parity component for the reference's DenseBTree/DenseBTreeList
 (src/dense_btree.rs:9-331): a cache-friendly drop-in for binary search over
 sorted u32 keys, packing the implicit K=16-ary tree level by level in flat
-arrays.  On TPU the CSR row lookup is a vectorized searchsorted, so this
-structure is CPU-host-only; it exists for the row-index-acceleration
-experiment (CsrBTree) and its storage-overhead study
-(bench_report.md:97-129: sawtooth -> 1/(K-1) ~ 6.67% asymptote).
+arrays.  On the device the CSR row lookup is a vectorized searchsorted, so
+this structure is host-side; it exists for the row-index-acceleration
+experiment (CsrBTree) and its storage-overhead study (the reference's
+sawtooth -> 1/(K-1) ~ 6.67% asymptote).
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ class DenseBTree:
 
     def overhead(self) -> float:
         """Extra storage as a fraction of the leaf array
-        (the sawtooth study, bench_report.md:97-129)."""
+        (the reference's sawtooth study)."""
         extra = sum(len(l) for l in self.levels)
         return extra / max(len(self.keys), 1)
 
@@ -100,14 +100,14 @@ class DenseBTreeList:
 
 
 # ---------------------------------------------------------------------------
-# device-side K-ary lookup (the CsrBTree row-index experiment, on TPU)
+# device-side K-ary lookup (the CsrBTree row-index experiment)
 # ---------------------------------------------------------------------------
 
 def build_device_btree(keys: np.ndarray):
     """Pack a sorted uint32 key array into the flat K-ary level layout on
     device.  Keys are padded to a power of K with 0xFFFFFFFF sentinels so a
     node's K separators are one contiguous (Q, K) gather per level — the
-    TPU translation of the reference's cache-line-friendly node layout
+    device translation of the reference's cache-line-friendly node layout
     (src/dense_btree.rs:9-331).  Returns (levels root-first, padded keys);
     queries must be < 0xFFFFFFFF."""
     import jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""Block-band MXU SpGEMM tests: band split/extract round-trips and exact
+"""Block-band dense SpGEMM tests: band split/extract round-trips and exact
 agreement of the categorized (band + outlier) path with the ESC kernel."""
 
 import numpy as np

@@ -1,7 +1,7 @@
 """Chain-bench driver paths (bench/chain.py): host-side build + native
-oracle overlap helpers and the pallas chain's per_step timing modes — the
-exact code bench.py runs on the driver (reference
-bench_repeated_exponentiation, src/graph_magnus.rs:700-788)."""
+oracle helpers and the dense-accumulator chain's per_step timing modes —
+the code bench.py runs (reference bench_repeated_exponentiation,
+src/graph_magnus.rs:700-788)."""
 
 import math
 
@@ -32,8 +32,8 @@ def test_host_build_matches_device(torus):
 
 
 def test_pallas_chain_headline_only(torus):
-    """per_step=False (the driver default) times only the A^max
-    differential; untimed steps still report exact nnz."""
+    """per_step=False times only the A^max differential; untimed steps
+    still report exact nnz."""
     h, stats, final = torus
     a = h.to_device()
     results = run_chain_pallas(a, max_step=4, iters=1, per_step=False,

@@ -175,7 +175,7 @@ def test_dense_dense_value_bound_poisons():
     from sparsetpu.ops.denseacc import spgemm_dense_dense
     from sparsetpu.semiring import U64
 
-    # inputs >= 2^16 break the two-term bf16 split: nnz must poison
+    # inputs >= 2^16 are outside the f32 tier's admission rule: nnz must poison
     r = np.array([0, 1]); c = np.array([1, 0])
     v = np.array([1 << 16, 3], dtype=np.uint64)
     a = SparseCSR.from_coo_host(r, c, v, 2, sr=U64)
@@ -208,7 +208,7 @@ def test_dense_dense_u32_f32_semirings():
 def test_auto_routes_densedense_and_falls_back():
     from sparsetpu.ops.spgemm import spgemm_auto
 
-    # products large vs n^2: the cost model must pick the MXU route and
+    # products large vs n^2: the cost model must pick the dense route and
     # the result must stay exact vs scipy
     coo = random_graph(200, 4000, seed=31)
     a = SparseCSR.from_coo_host(*coo)

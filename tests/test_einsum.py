@@ -330,8 +330,8 @@ class TestFromDenseDevice:
 
 class TestChainPlanner:
     """>= 3-operand matmul chains lower through pairwise SpGEMM with sparse
-    intermediates (round-1 engine densified these through the loop-nest
-    fallback; reference scheduler: linalg/src/einsum.rs:327-389)."""
+    intermediates (never densified through the loop-nest fallback;
+    reference scheduler: linalg/src/einsum.rs:327-389)."""
 
     def _rand_csr(self, n, m, nnz, seed):
         rng = np.random.default_rng(seed)

@@ -1,7 +1,7 @@
 """Row-categorized SpGEMM (ops/rowcat.py): agreement vs the ESC kernel and
 the exact Python oracle across uniform, skewed, rectangular, and saturating
 inputs — the reference cross-validation discipline
-(src/graph_magnus.rs:859-881) applied to the TPU MAGNUS re-design."""
+(src/graph_magnus.rs:859-881) applied to the vectorized MAGNUS re-design."""
 
 import numpy as np
 import pytest
@@ -123,16 +123,6 @@ def test_rowcat_overflow_row_via_esc():
     ad = a.to_dense_numpy().astype(np.int64)
     np.testing.assert_array_equal(got.to_dense_numpy().astype(np.int64),
                                   ad @ ad)
-
-
-def test_rowcat_pallas_sortmerge_agrees():
-    """use_pallas=True routes eligible categories through the VMEM
-    sort-merge kernel (interpret mode on CPU) — must agree bit-exactly."""
-    coo = datasets.power_law(300, m_per_node=6, seed=4)
-    a = _csr(coo)
-    got = spgemm_rowcat(a, a, use_pallas=True).check()
-    want = spgemm_rowcat(a, a, use_pallas=False).check()
-    _assert_equal(got, want)
 
 
 def test_rowcat_unfused_agrees():

@@ -1,8 +1,7 @@
-"""Native-op segmented saturating scan (ops/segments.py round-4 rewrite).
+"""Native-op segmented saturating scan (ops/segments.py).
 
-The associative-scan formulation was the framework-wide sort-path compile
-ceiling (reports/probe_compile_r4*.csv); the replacement computes segment
-totals from modular 16-bit plane cumsums.  This battery checks the
+The associative-scan formulation is compile-bounded; the replacement
+computes segment totals from modular 16-bit plane cumsums.  This battery checks the
 replacement against Python-bigint folds at the edges the plane math could
 get wrong: saturation, values at limb boundaries, segment-length guard,
 both axes, u32 and u64.

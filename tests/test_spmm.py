@@ -1,17 +1,26 @@
 """Dense-accumulator SpMM chain kernel tests: exact agreement with ESC."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from sparsetpu import SparseCSR, U64, spgemm_auto
-from sparsetpu.bench.chain import run_chain_dense, tuple_to_f32_dense
+from sparsetpu.bench.chain import run_chain_pallas, tuple_to_f32_dense
 from sparsetpu.graphs import generate
-from sparsetpu.ops.spmm import dense_to_csr, prepare_spmm_operand, spmm_dense
+from sparsetpu.kernels import spmm_pallas as sp
+from sparsetpu.ops.spmm import dense_to_csr
 
 
 def _dev(coo):
     rows, cols, vals, n = coo
     return SparseCSR.from_coo(rows, cols, vals, n, sr=U64)
+
+
+def _square(a):
+    """A x A through the row kernel, back as an unpadded dense matrix."""
+    c = sp.spmm_pallas(*sp.csr_operand(a), sp.pad_cols(tuple_to_f32_dense(a)))
+    return np.asarray(jax.device_get(c))[:, : a.n_cols]
 
 
 def test_spmm_matches_esc():
@@ -20,10 +29,7 @@ def test_spmm_matches_esc():
     a = _dev(coo)
     # numpy int64 oracle (exact here) instead of compiling the ESC stack
     ad = a.to_dense_numpy().astype(np.int64)
-    cols, vals, lrow, rpc = prepare_spmm_operand(a, n_chunks=4)
-    p = tuple_to_f32_dense(a)
-    c = spmm_dense(cols, vals, lrow, p, rows_per_chunk=rpc)
-    got = dense_to_csr(c, U64)
+    got = dense_to_csr(jnp.asarray(_square(a)), U64)
     np.testing.assert_array_equal(got.to_dense_numpy().astype(np.int64),
                                   ad @ ad)
 
@@ -31,7 +37,7 @@ def test_spmm_matches_esc():
 def test_spmm_chain_matches_esc():
     coo = generate.lattice([3, 3, 3], torus=True)
     a = _dev(coo)
-    results = run_chain_dense(a, max_step=4, iters=1, n_chunks=3, verbose=False)
+    results = run_chain_pallas(a, max_step=4, iters=1, reps=1, verbose=False)
     ad = a.to_dense_numpy().astype(np.int64)
     cur = ad
     for rec in results:
@@ -42,15 +48,13 @@ def test_spmm_chain_matches_esc():
 def test_spmm_rejects_huge_values():
     a = SparseCSR.from_coo([0], [1], [1 << 25], 2, sr=U64)
     with pytest.raises(ValueError, match="2\\^24"):
-        prepare_spmm_operand(a, n_chunks=1)
+        sp.csr_operand(a)
 
 
 def test_spmm_uneven_chunks():
-    # n not divisible by n_chunks; empty rows in tail
+    # n not a multiple of the column block; empty rows in the tail
     coo = generate.random_graph(23, 60, seed=9)
     a = _dev(coo)
     want = spgemm_auto(a, a)
-    cols, vals, lrow, rpc = prepare_spmm_operand(a, n_chunks=5)
-    c = spmm_dense(cols, vals, lrow, tuple_to_f32_dense(a), rows_per_chunk=rpc)
-    got = dense_to_csr(c, U64)
+    got = dense_to_csr(jnp.asarray(_square(a)), U64)
     np.testing.assert_array_equal(got.to_dense_numpy(), want.to_dense_numpy())
